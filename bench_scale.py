@@ -1,8 +1,8 @@
-"""Scale benchmark: 1k-10k-image sparse reconstruction on ONE chip.
+"""Scale benchmark: 1k-10k-image sparse reconstruction on ONE card.
 
-BASELINE.md's eval configs name 1k and 10k inputs; round 1 could not run
-them (whole-collection descriptor residency), round 3 ran 10k through
-extraction+matching only. This harness carries ALL sparse stages through
+The 1k and 10k collection sizes are the scale configurations of the
+original plan (BASELINE.md@0af5287). This harness carries ALL sparse
+stages through
 at SCALE_IMAGES and reports per-stage splits, merge sub-splits
 (load/fold/graph/refine), utilization accounting (achieved TFLOP/s and
 fraction of bf16 peak for matching / mapping / merge BA), and the host
@@ -61,8 +61,11 @@ def _ba_perf(peak_tflops):
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache")
     import jax
+
+    from scanner_colmap_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from scanner_colmap_tpu.ops import ba
     from scanner_colmap_tpu.pipeline import stages, synth
@@ -147,7 +150,7 @@ def main():
     map_meta = store.read_manifest("mapping")["meta"]
     merge_meta = store.read_manifest("models")["meta"]
 
-    # matching utilization (MXU matmul fraction); skipped on resume runs
+    # matching utilization (matmul fraction of peak); skipped on resume runs
     # where the stage time was not re-measured
     if times["matching"] > 0:
         m_fl = fl.matching_flops(mm["scheduled_pairs"], mm["k_max"])

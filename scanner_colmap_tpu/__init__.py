@@ -1,10 +1,13 @@
-"""scanner_colmap_tpu — a TPU-native Structure-from-Motion / Multi-View-Stereo framework.
+"""scanner_colmap_tpu — a JAX Structure-from-Motion / Multi-View-Stereo framework.
 
 A from-scratch re-design of the capabilities of ``garyjyzhang/scanner-colmap``
-(an 8-stage COLMAP-on-Scanner dataflow pipeline) for TPU hardware:
+(an 8-stage COLMAP-on-Scanner dataflow pipeline) for accelerators, run on
+NVIDIA GPUs:
 
-- compute path: JAX / XLA / Pallas, jitted with static shapes, batched onto the MXU
-- scale-out: ``jax.sharding`` meshes + shard_map collectives over ICI (not a
+- compute path: JAX / XLA, jitted with static shapes, batched into dense
+  matmuls and elementwise work
+- scale-out: ``jax.sharding`` meshes + shard_map collectives across the
+  cards of a host, and one process per card across hosts (not a
   Scanner-style gRPC worker pool)
 - storage: a typed columnar artifact store (stage tables, like Scanner's table
   store) plus COLMAP-binary interchange for evaluation

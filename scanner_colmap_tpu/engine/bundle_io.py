@@ -30,7 +30,7 @@ def bucket_points(n: int, lo: int = 512) -> int:
 
     Pow2 alone wastes up to 2x at collection scale — a 550k-point merged
     model padded to 1M carries a ~1.6 GB CG working set (Wc is P*T*96
-    bytes) and crashed the v5e worker on the 10k run. Above 128k each
+    bytes) and ran a device out of memory on a 10k run. Above 128k each
     solve is a one-off large shape anyway, so the finer 64k steps cost at
     most one extra compile per run while capping pad waste at 12%."""
     if n <= 131072:
@@ -51,9 +51,8 @@ def pack_bundle_flat(
 
     Column layout documented on bundle_adjust_flat. pose_free defaults to
     all-free and priors to zero-weight; the caller edits those columns.
-    Generous bucket floors (min_images 16, min_points 512): on backends
-    without a persistent compile cache every distinct shape costs a ~2 s
-    remote compile, which dwarfs the padded FLOPs.
+    Generous bucket floors (min_images 16, min_points 512): every distinct
+    shape costs a compile, which dwarfs the padded FLOPs.
     """
     image_ids = [i for i in image_ids if rec.images[i].registered]
     M = next_pow2(max(len(image_ids), 1), min_images)

@@ -167,14 +167,17 @@ def run_clustered_mapping(
         # failure tolerance (the per-unit tolerance the reference applies
         # per-image in PatchMatch, patch_match.cc:108-114, applied per
         # CLUSTER here): a cluster the single-program mapper under-registers
-        # — TPU f32 matmul numerics are bf16-pass by default and RANSAC
-        # margins occasionally land on the wrong side — retries on the host
-        # mapper's exact COLMAP schedule before the submodel is shipped
+        # (its static registration schedule can miss an image the host
+        # mapper's adaptive one finds) retries on the host mapper's exact
+        # COLMAP schedule before the submodel is shipped. The retry count
+        # lands in LAST_MAPPING_STATS["host_retries"].
         min_frac = getattr(cfg, "device_fallback_min_frac", 0.6)
+        LAST_MAPPING_STATS["host_retries"] = 0
         for ci, rec in enumerate(recs):
             members = clusters[ci]
             if (len(members) >= 3
                     and rec.num_registered < min_frac * len(members)):
+                LAST_MAPPING_STATS["host_retries"] += 1
                 g, tv = subgraph(graph, two_view, members)
                 host_rec = IncrementalMapper(
                     {i: keypoints[i] for i in members},

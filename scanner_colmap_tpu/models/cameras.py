@@ -182,8 +182,8 @@ def np_image_to_cam(model_id, params, uv, num_iters: int = 10):
     """Numpy pixel -> normalized ray coords; fixed-point undistortion.
 
     Host control-plane mirror of `image_to_cam`: the engine normalizes
-    per-image keypoint sets in inner loops where a device round-trip
-    (~30 ms on tunneled backends) would dominate.
+    per-image keypoint sets in inner loops where a device round trip per
+    call would dominate.
     """
     import numpy as np
 

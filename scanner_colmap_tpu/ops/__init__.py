@@ -1,7 +1,8 @@
-"""TPU compute ops: SIFT, matching, two-view geometry, triangulation, PnP,
-bundle adjustment, PatchMatch stereo, fusion, undistortion.
+"""Device compute ops: SIFT, matching, two-view geometry, triangulation,
+PnP, bundle adjustment, PatchMatch stereo, fusion, undistortion.
 
 All ops are jittable with static shapes (padding + masks for variable-length
-data) and batch via vmap/shard_map. Hot paths are shaped for the MXU
-(batched matmuls) with Pallas kernels where XLA fusion is not enough.
+data) and batch via vmap/shard_map. Hot paths are shaped as batched dense
+matmuls and elementwise work that XLA compiles for the card; there are no
+hand-written kernels.
 """

@@ -1,18 +1,18 @@
-"""Bundle adjustment: Levenberg-Marquardt with Schur complement, TPU-native.
+"""Bundle adjustment: Levenberg-Marquardt with Schur complement, on device.
 
 Rebuilds the capability of COLMAP's Ceres/PBA bundle adjustment as driven by
-the reference's mapping kernel (/root/reference/integration/op_cpp/
+the reference's mapping kernel (integration/op_cpp/
 incremental_mapping.cc:59-139: AdjustGlobalBundle / IterativeLocal/Global
-Refinement) — but as a dense-block, static-shape LM solver designed for the
-MXU instead of a sparse CPU solver:
+Refinement) — but as a dense-block, static-shape LM solver built from
+batched matmuls instead of a sparse CPU solver:
 
 - observations are grouped BY POINT with a fixed max track length T: all
-  Jacobians (closed form) evaluate as one (P, T, ...) batch on the VPU
+  Jacobians (closed form) evaluate as one (P, T, ...) elementwise batch
 - per-point 3x3 landmark blocks V_j invert in batch (closed-form adjugate)
 - the reduced camera system (Schur complement S = U - B V^{-1} B^T) is built
-  with chunked einsums — scatter-by-camera is a one_hot matmul, which is
-  exactly what the MXU wants — and solved densely (6-8 params x M cameras,
-  M <= ~10^2, so S is a few-hundred-square dense matrix: trivial on-chip)
+  with chunked einsums — scatter-by-camera is a one_hot matmul — and solved
+  densely (6-8 params x M cameras, M <= ~10^2, so S is a few-hundred-square
+  dense matrix: trivial on the device)
 - the LM loop (damping adaptation, accept/reject) runs fully in-graph via
   lax.while_loop -> zero host round-trips per iteration
 
@@ -22,7 +22,7 @@ Residuals are in PIXELS with a smooth robust loss, matching COLMAP's
 convergence criteria semantics.
 
 Multi-chip: points partition across devices (each device owns a point shard
-and its observations); U, g_c, S are psum-reduced over ICI — see
+and its observations); U, g_c, S are psum-reduced across devices — see
 scanner_colmap_tpu/parallel/dist_ba.py.
 """
 
@@ -35,8 +35,7 @@ import jax
 import jax.numpy as jnp
 
 from scanner_colmap_tpu.models import geometry as geom
-from scanner_colmap_tpu.ops.linalg3 import inv33 as _inv33
-from scanner_colmap_tpu.utils.jit_cache import persistent_jit
+from scanner_colmap_tpu.ops.linalg3 import f32_matmuls, inv33 as _inv33
 
 
 class BundleParams(NamedTuple):
@@ -186,7 +185,7 @@ def robust_cost(params: BundleParams, obs: BundleObs, cfg: BundleConfig,
     """Total Cauchy cost: sum s^2/2 * log(1 + |r|^2/s^2), plus raw stats.
 
     With axis_name set (points sharded over a mesh axis inside shard_map),
-    the sums reduce over ICI via psum so every shard sees global values.
+    the sums reduce across devices via psum so every shard sees global values.
     """
     r, ok, _ = _project_residual(params, obs, cfg)
     rn2 = jnp.sum(r * r, axis=-1)
@@ -236,9 +235,9 @@ def _build_normal_eqs(params, obs, cfg, lam, chunk: int, axis_name=None):
     Vd = Vd + 1e-8 * jnp.eye(3, dtype=V.dtype)
     Vinv = _inv33(Vd)
 
-    # camera-side: U (M,8,8), g_c (M,8) via segment sums — measured as fast
-    # as the MXU one-hot einsum and avoids the (P, T, M) one-hot (200 MB at
-    # M=256/P=49k); the one-hot remains only where the B coupling blocks
+    # camera-side: U (M,8,8), g_c (M,8) via segment sums — as fast as the
+    # one-hot einsum on the previous accelerator, and avoids the (P, T, M)
+    # one-hot (200 MB at M=256/P=49k); the one-hot remains only where the B coupling blocks
     # genuinely need the dense scatter (chunk_body below)
     U = _segsum_cam(jnp.einsum("ptri,ptrj->ptij", wJc, J_cam),
                     obs.cam_idx, M)
@@ -266,7 +265,7 @@ def _build_normal_eqs(params, obs, cfg, lam, chunk: int, axis_name=None):
         chunk_body, (S0, rhs0), jnp.arange(n_chunks))
 
     if axis_name is not None:
-        # camera-side systems reduce over the point-sharded mesh axis (ICI);
+        # camera-side systems reduce over the point-sharded mesh axis;
         # every shard then solves the identical replicated camera system
         U, g_c, S_pt, rhs_pt = jax.lax.psum((U, g_c, S_pt, rhs_pt), axis_name)
 
@@ -417,14 +416,13 @@ def _lm_trial_cg(params, obs, cfg, lam, cg_iters: int, cg_tol: float = 1e-4,
         chunk = Pn
     n_chunks = Pn // chunk
     assert Pn % chunk == 0, f"points {Pn} must divide by chunk {chunk}"
-    # CG matvec gather/scatter plan (round-5, VERDICT r4 #4): XLA's TPU
-    # gather of (8 f32)-rows runs at ~2.5 GB/s and segment_sum scatter is
-    # no better — together they were ~75% of each matvec at M=1024. The
-    # "onehot" plan expresses BOTH as (c*T, M) bf16 one-hot matmuls on
-    # the MXU (the one-hot is exact in bf16; x/z quantize to bf16, an
+    # CG matvec gather/scatter plan: the "onehot" plan expresses the
+    # camera gather AND the segment_sum scatter as (c*T, M) bf16 one-hot
+    # matmuls (the one-hot is exact in bf16; x/z quantize to bf16, an
     # inner-solver perturbation the LM accept gate absorbs — convergence
-    # parity asserted in tests and the multichip dryrun). Gated to larger
-    # M where the win is real and the one-hot fits comfortably.
+    # parity asserted in tests and the multichip dryrun). It won where
+    # row gathers and scatters are slow; gated to larger M where the
+    # one-hot fits comfortably. Its A/B on the GPU is not measured yet.
     use_onehot = (cg_segsum == "onehot"
                   or (cg_segsum == "auto"
                       and M >= 512 and chunk * T * M * 2 <= 1 << 30))
@@ -475,7 +473,7 @@ def _lm_trial_cg(params, obs, cfg, lam, cg_iters: int, cg_tol: float = 1e-4,
     cam_idx_s = obs.cam_idx.reshape(n_chunks, chunk, T)
     if axis_name is not None:
         # points sharded over the mesh axis: camera-side systems reduce
-        # over ICI; priors/damping apply to the replicated result below
+        # across devices; priors/damping apply to the replicated result below
         U, g_c, rhs_sub, d_sub = jax.lax.psum(
             (U, g_c, rhs_sub, d_sub), axis_name)
 
@@ -596,6 +594,7 @@ def _lm_trial_cg(params, obs, cfg, lam, cg_iters: int, cg_tol: float = 1e-4,
 @functools.partial(jax.jit, static_argnames=("max_iterations", "chunk",
                                              "axis_name", "solver",
                                              "cg_iters"))
+@f32_matmuls
 def bundle_adjust(
     params: BundleParams,
     obs: BundleObs,
@@ -616,6 +615,10 @@ def bundle_adjust(
 
     Returns (params, info dict of (costs over iters, final mean px error,
     num accepted steps)).
+
+    Precision: float32 matmuls at the highest precision (f32_matmuls); the
+    callers (bundle_adjust_packed / _flat, the distributed solver) inherit
+    it.
     """
     if solver not in ("dense", "cg"):
         raise ValueError(f"solver must be 'dense' or 'cg', got {solver!r}")
@@ -624,10 +627,9 @@ def bundle_adjust(
     cost0, _, _ = robust_cost(params, obs, cfg, axis_name)
 
     # FIXED-trip fori_loop with convergence masking, NOT lax.while_loop: a
-    # data-dependent while syncs its condition through the host on remote
-    # TPU backends (~180 ms/iter observed); masked no-op iterations after
-    # convergence keep the whole solve one uninterrupted device program
-    # (measured 90x faster per iteration). The LM trial itself sits behind
+    # data-dependent while copies its condition to the host every
+    # iteration; masked no-op iterations after convergence keep the whole
+    # solve one uninterrupted device program. The LM trial itself sits behind
     # a lax.cond so converged trips cost ~nothing on device (HLO
     # Conditional executes one branch) — with dead trips free, long
     # max_iterations budgets can run as ONE program (see
@@ -683,8 +685,8 @@ def bundle_adjust_packed(
     cg_iters: int = 64,
 ):
     """`bundle_adjust` with results packed into 3 arrays — (cam (M, 9),
-    xyz (P, 3), stats (6,)) — so host engines on high-latency tunneled
-    backends pay 3 device->host transfers instead of ~10.
+    xyz (P, 3), stats (6,)) — so host engines pay 3 device->host transfers
+    instead of ~10.
 
     cam rows are [qvec(4), tvec(3), log_f(1), k1(1)]; stats is
     [initial_cost, final_cost, iterations, mean_reproj_px, num_obs,
@@ -718,14 +720,14 @@ NUM_CAM_IN = 22  # qvec4 t3 logf k1 cc2 cam_valid pose_free6 plogf pk1 pwf pwk
 NUM_CAM_IN_TIED = 23
 
 
-@persistent_jit(static_argnames=("max_iterations", "chunk", "solver",
-                                 "cg_iters"))
+@functools.partial(jax.jit, static_argnames=("max_iterations", "chunk",
+                                             "solver", "cg_iters"))
 def bundle_adjust_flat(cam_in, pt_in, obs_in, scal_in,
                        max_iterations: int = 25, chunk: int = 1024,
                        function_tolerance: float = 1e-6,
                        solver: str = "dense", cg_iters: int = 64):
-    """Fully packed LM solve for host engines on high-latency tunneled
-    backends: ONE upload block + ONE download.
+    """Fully packed LM solve for host engines: ONE upload block + ONE
+    download.
 
     cam_in  (M, 22): [qvec(4), tvec(3), log_f, k1, cc(2), cam_valid,
                       pose_free(6), prior_log_f, prior_k1,
@@ -788,13 +790,15 @@ def bundle_adjust_flat_segmented(cam_in, pt_in, obs_in, scal_in,
     """Host driver over fixed-size `bundle_adjust_flat` segments.
 
     The in-graph LM loop has a STATIC trip count (a data-dependent while
-    costs a host sync per iteration on remote backends — see bundle_adjust).
-    segment=0 (default) picks a LATENCY-BALANCED schedule: a trip costs
-    ~1 ms per 16k observation cells on v5e while a continuation round trip
-    costs ~40 ms, so small solves run ALL max_iterations as ONE program
-    (wasted post-convergence trips are cheaper than any extra round trip)
-    and large solves use segments sized so each segment's device time
-    matches the latency it amortizes. Explicit positive segments override.
+    costs a host sync per iteration — see bundle_adjust). segment=0
+    (default) picks a LATENCY-BALANCED schedule from an ASSUMED trip cost
+    (~1 ms per 16k observation cells) against an assumed ~40 ms
+    continuation round trip: small solves run ALL max_iterations as ONE
+    program (wasted post-convergence trips are cheaper than any extra round
+    trip) and large solves use segments sized so each segment's device time
+    matches the latency it amortizes. Both costs are design assumptions
+    from the previous accelerator, not measured on the GPU yet. Explicit
+    positive segments override.
     """
     import numpy as np
     import time as _time
@@ -802,14 +806,14 @@ def bundle_adjust_flat_segmented(cam_in, pt_in, obs_in, scal_in,
     _t_start = _time.time()
     if segment <= 0:
         obs_cells = float(obs_in.shape[0] * obs_in.shape[1])
-        trip_ms = obs_cells * 6.5e-5   # ~1 ms per trip at 16k cells (v5e)
+        trip_ms = obs_cells * 6.5e-5   # assumed ~1 ms per trip at 16k cells
         # converged trips are ~free (lax.cond skip in bundle_adjust), so the
         # one-shot threshold prices the WORST case against saved round
         # trips: typical solves converge well inside the budget and pay
-        # only converged_iters * trip_ms. 1 s cap (round 3; was 250 ms):
-        # merged-model solves at 1M obs cells ran 3 escalating segments,
-        # paying extra compiles + D2H downloads that cost more than the
-        # worst-case wasted trips
+        # only converged_iters * trip_ms. 1 s cap (250 ms made merged-model
+        # solves at 1M obs cells run 3 escalating segments, paying extra
+        # compiles + D2H downloads that cost more than the worst-case
+        # wasted trips)
         if max_iterations * trip_ms <= 1000.0:
             segment = max(int(max_iterations), 1)
         else:

@@ -2,11 +2,12 @@
 
 The host-driven engine (engine/incremental.py) replicates COLMAP's control
 loop (reference incremental_mapping.cc:305-361) with one device solve per
-refinement round — correct, but on a high-latency link the ~20 round trips
-per cluster ARE the mapping wall-clock (PERFORMANCE.md "Known bounds").
+refinement round — correct, but the ~20 host round trips per cluster
+bound the mapping wall-clock whenever a round trip costs more than the
+solve.
 
-This module is the TPU-native alternative: the ENTIRE cluster solve runs as
-ONE device program with static shapes and `lax`-level control flow —
+This module is the device-resident alternative: the ENTIRE cluster solve
+runs as ONE device program with static shapes and `lax`-level control flow —
 SURVEY §7.4.2's "host-driven outer loop" replaced by a fixed registration
 schedule precomputed from the match graph (engine/device_cluster.py):
 
@@ -28,8 +29,8 @@ incremental.py complete_tracks/merge_tracks).
 Trade-off vs the host engine: the registration ORDER is a static heuristic
 (match-connectivity greedy) instead of COLMAP's visible-points ranking, and
 local refinement is a whole-cluster masked BA instead of a neighbor window.
-At cluster scale (<= ~32 images) the whole-cluster solve is a few ms per LM
-trip on the MXU, and sequential collections register in chain order anyway.
+At cluster scale (<= ~32 images) the whole-cluster solve is small per LM
+trip, and sequential collections register in chain order anyway.
 
 Reference behavior covered here: FindInitialImagePair/RegisterInitialImagePair
 (incremental_mapping.cc:305-313), RegisterNextImage (:329), TriangulateImage
@@ -38,13 +39,14 @@ Reference behavior covered here: FindInitialImagePair/RegisterInitialImagePair
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 
 from scanner_colmap_tpu.models import geometry as geom
 from scanner_colmap_tpu.ops import ba, pnp
 from scanner_colmap_tpu.ops.linalg3 import det33, solve33
-from scanner_colmap_tpu.utils.jit_cache import persistent_jit
 
 
 def _obs_errors(cam, xyz, obs_cam, obs_uv, cc):
@@ -72,9 +74,9 @@ def _triangulate_all(cam, registered, obs_cam, obs_xn, obs_present,
     """Masked inhomogeneous multi-view DLT for EVERY track at once.
 
     Solves A[:, :3] X = -A[:, 3] per track over its registered observations
-    via closed-form 3x3 normal equations (ops/linalg3) — pure VPU work; the
-    homogeneous 4x4 eigen form (ops/triangulate.py) batches an eigh that
-    serializes on the scalar unit, unaffordable inside a per-step loop.
+    via closed-form 3x3 normal equations (ops/linalg3) — pure elementwise
+    work; the homogeneous 4x4 eigen form (ops/triangulate.py) batches an
+    iterative eigh, unaffordable inside a per-step loop.
     The inhomogeneous form only fails for points AT infinity, which the
     acceptance gates reject anyway.
 
@@ -302,8 +304,8 @@ def _map_cluster_impl(key, cam_in, order, forced, reg_init,
         stats])
 
 
-@persistent_jit(static_argnames=("pnp_trials", "ba_iters", "final_iters",
-                                 "chunk"))
+@functools.partial(jax.jit, static_argnames=("pnp_trials", "ba_iters",
+                                             "final_iters", "chunk"))
 def map_cluster(key, cam_in, order, forced, reg_init,
                 obs_cam, obs_uv, obs_xn, obs_present,
                 pnp_thr_n, tri_thr_n, scal,
@@ -311,11 +313,11 @@ def map_cluster(key, cam_in, order, forced, reg_init,
                 final_iters: int = 40, chunk: int = 1024):
     """Single-cluster entry point (see _map_cluster_impl for the contract).
 
-    Traced under full-f32 matmul precision: the TPU default lowers f32
-    matmuls to single-pass bf16 and the mapper's RANSAC/triangulation
-    margins occasionally flip on the reduced mantissa (observed: a cluster
-    registering 2/8 on-chip vs 8/8 on CPU). The mapper is link-latency
-    bound, so the extra MXU passes are ~free.
+    Traced under full-f32 matmul precision: a backend default that
+    reduces the f32 mantissa (bf16 passes, or TF32 on tensor-core GPUs)
+    flips the mapper's RANSAC/triangulation margins (observed on the
+    previous accelerator: a cluster registering 2/8 vs 8/8 on CPU). The
+    mapper's matmuls are small, so full precision costs little.
     """
     with jax.default_matmul_precision("float32"):
         return _map_cluster_impl(
@@ -324,8 +326,8 @@ def map_cluster(key, cam_in, order, forced, reg_init,
             ba_iters=ba_iters, final_iters=final_iters, chunk=chunk)
 
 
-@persistent_jit(static_argnames=("pnp_trials", "ba_iters", "final_iters",
-                                 "chunk"))
+@functools.partial(jax.jit, static_argnames=("pnp_trials", "ba_iters",
+                                             "final_iters", "chunk"))
 def map_cluster_batch(key, cam_in, order, forced, reg_init,
                       obs_cam, obs_uv, obs_xn, obs_present,
                       pnp_thr_n, tri_thr_n, scal,
@@ -333,24 +335,23 @@ def map_cluster_batch(key, cam_in, order, forced, reg_init,
                       final_iters: int = 40, chunk: int = 1024):
     """vmapped `_map_cluster_impl`: every array gains a leading cluster axis.
 
-    All clusters of a collection solve as ONE device program — the TPU
+    All clusters of a collection solve as ONE device program — the device
     analog of the reference shipping clusters to independent Scanner
     workers (SURVEY §2.2 parallelism #3), here as one batched program's
     leading axis.
 
-    MEASURED: 4.4x SLOWER than async per-cluster `map_cluster` dispatches
-    on one chip (4.0 s vs 0.9 s warm, 16 images / 3 clusters). vmap lowers
+    Slower than async per-cluster `map_cluster` dispatches on one device
+    (4.4x at 16 images / 3 clusters on the previous accelerator; not
+    measured on the GPU yet). vmap lowers
     `lax.cond` to select, so the conditionals this program's economics
     depend on — converged LM trips (ops/ba.py body), inactive schedule
     steps, failed registrations skipping grow_and_refine — all execute
     BOTH branches for every lane. Async dispatch already pipelines
     clusters back-to-back on device with zero host syncs in between, and
     keeps real single-branch conditionals. This entry point stays for
-    data-parallel lane sharding across chips (where lanes pay the select
-    cost but chips multiply), gated by MapperConfig.device_batch_clusters.
+    data-parallel lane sharding across devices (where lanes pay the select
+    cost but devices multiply), gated by MapperConfig.device_batch_clusters.
     """
-    import functools
-
     fn = functools.partial(_map_cluster_impl, pnp_trials=pnp_trials,
                            ba_iters=ba_iters, final_iters=final_iters,
                            chunk=chunk)

@@ -6,7 +6,7 @@ SURVEY §8.2); its intended semantics (per-pixel region growing with
 depth-error / reprojection-error / normal-angle consistency gates,
 stereo_fusion.cc:141-173) come from COLMAP's ``mvs::StereoFusion``.
 
-TPU-first reformulation (SURVEY §2.2): the serial pixel-BFS traversal
+Data-parallel reformulation (SURVEY §2.2): the serial pixel-BFS traversal
 becomes BATCHED CONSISTENCY VOTING — every pixel of every depth map is
 back-projected and checked against every other view's depth map in one
 vectorized pass; a pixel emits a fused point iff it has enough consistent

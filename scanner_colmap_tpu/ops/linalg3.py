@@ -1,15 +1,32 @@
-"""Closed-form small-matrix linear algebra (VPU-friendly, loop-free).
+"""Closed-form small-matrix linear algebra (loop-free), and the matmul
+precision of the geometric solvers.
 
-jnp.linalg.{solve,det,inv} on batched 3x3s lower to loopy LU factorizations
-on TPU — slow to compile and to run. SfM needs millions of tiny solves
-(DoG subpixel refinement, landmark blocks, homography chains); these
+jnp.linalg.{solve,det,inv} on batched 3x3s lower to loopy LU
+factorizations — slow to compile and to run. SfM needs millions of tiny
+solves (DoG subpixel refinement, landmark blocks, homography chains); these
 adjugate/cofactor forms are pure elementwise arithmetic.
 """
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
+
+
+def f32_matmuls(fn):
+    """Trace `fn` with float32 matmuls at the highest precision.
+
+    Without it the backend picks the precision of f32 products (TF32 on
+    tensor-core GPUs), and the margins of RANSAC scores, LM acceptance and
+    cheirality tests can land on the other side. Stack it under the
+    function's jax.jit so the choice is part of the compiled program."""
+    @functools.wraps(fn)
+    def traced(*args, **kwargs):
+        with jax.default_matmul_precision("float32"):
+            return fn(*args, **kwargs)
+    return traced
 
 
 def det33(A: jax.Array) -> jax.Array:

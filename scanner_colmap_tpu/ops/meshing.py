@@ -3,13 +3,14 @@
 The reference's step 8 is Poisson meshing — listed as "coming soon"
 (/root/reference/README.md:69) with ``poisson_recon`` linked into the build
 (/root/reference/integration/op_cpp/CMakeLists.txt:91) but no kernel, no
-driver, nothing shipped. This module ships the stage, TPU-first: instead of
+runner, nothing shipped. This module ships the stage as dense array
+programs: instead of
 an irregular octree Poisson solve (pointer-chasing and data-dependent
 refinement, hostile to XLA), the surface is recovered by
 
 1. **Truncated-signed-distance fusion** of the depth maps on a dense voxel
    grid — one batched transform-project-gather pass per view folded with
-   ``lax.scan`` (static shapes, MXU-friendly pose transforms, a single
+   ``lax.scan`` (static shapes, batched pose transforms, a single
    nearest gather per voxel per view), KinectFusion-style; and
 2. **vectorized marching tetrahedra** over the grid (host numpy on active
    cells only): each cube splits into the 6 tetrahedra sharing its main

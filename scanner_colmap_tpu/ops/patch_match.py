@@ -1,10 +1,10 @@
-"""PatchMatch multi-view stereo, TPU-native.
+"""PatchMatch multi-view stereo as dense array programs.
 
 Rebuilds the capability of COLMAP's CUDA ``mvs::PatchMatch`` as driven by the
-reference's kernel (/root/reference/integration/op_cpp/patch_match.cc:74-114:
-per reference image, a window of source views, random-init depth/normal,
-propagation, bilateral-NCC window cost) — redesigned for the TPU's dense
-execution model (SURVEY §7.4.5):
+reference's kernel (integration/op_cpp/patch_match.cc:74-114: per reference
+image, a window of source views, random-init depth/normal, propagation,
+bilateral-NCC window cost) — redesigned as whole-image array programs that
+XLA compiles (SURVEY §7.4.5):
 
 - instead of CUDA's sequential red/black sweeps with per-pixel dynamic
   view-selection state, each iteration is a JACOBI update: a static set of
@@ -14,7 +14,7 @@ execution model (SURVEY §7.4.5):
   ALL source views at once, and the argmin wins
 - the plane-induced homography warp + bilateral-weighted NCC accumulate
   over static window offsets as fully-vectorized (S, H, W) map operations:
-  everything is elementwise/VPU work + bilinear gathers, no data-dependent
+  everything is elementwise work + bilinear gathers, no data-dependent
   control flow
 - occlusion robustness: per-pixel cost = mean of the best half of the
   source views (replaces COLMAP's probabilistic view selection)
@@ -93,8 +93,8 @@ def plane_costs(
     candidate planes, which for the coherent fields PatchMatch proposes is
     an equally valid sampling of the local surface. sampling="exact" warps
     every window offset through the center pixel's plane (COLMAP's slanted
-    window): 49 scattered gathers per candidate instead of 1, which is
-    ~20x slower on TPU where random gathers dominate.
+    window): 49 scattered gathers per candidate instead of 1, far slower
+    wherever random gathers dominate.
 
     With ``src_depths`` (COLMAP geom_consistency, second PatchMatch pass):
     per source view the cost gains ``geom_weight * min(err_fb,
@@ -255,7 +255,8 @@ def _plane_costs_field(problem, xx, yy, xn, yn, depth, n_over, Rm, tm, Ks,
     """Gradient-corrected field-warp sampling (see plane_costs).
 
     Exact slanted-window sampling needs a scattered gather per window
-    offset (the TPU's weakest op — measured linear in offset count).
+    offset (scattered gathers — their cost grows linearly with the offset
+    count).
     Here each source is gathered ONCE per candidate (value + 2 gradient
     images at the center-warp coordinates); every window tap is then
     reconstructed by a first-order expansion around the ROLLED center warp:
@@ -288,8 +289,8 @@ def _plane_costs_field(problem, xx, yy, xn, yn, depth, n_over, Rm, tm, Ks,
     # per candidate (slice_size (1,1,3): one contiguous fetch), then a
     # first-order correction to the exact continuous coordinates — replaces
     # 3 separate bilinear gathers (12 taps) with the same first-order
-    # interpolation accuracy. Gather taps are the entire PatchMatch budget
-    # on TPU, so tap count is wall time.
+    # interpolation accuracy. Gather taps bound PatchMatch, so tap count
+    # is wall time.
     def grad_xy(img):
         gx = 0.5 * (jnp.roll(img, -1, 1) - jnp.roll(img, 1, 1))
         gy = 0.5 * (jnp.roll(img, -1, 0) - jnp.roll(img, 1, 0))
@@ -414,7 +415,10 @@ def patch_match(
     init_normal: jax.Array | None = None,  # (H, W, 3)
     sampling: str = "field",
 ) -> tuple:
-    """Estimate (depth (H,W), normal (H,W,3), cost (H,W)) for the ref view."""
+    """Estimate (depth (H,W), normal (H,W,3), cost (H,W)) for the ref view.
+
+    Precision: XLA's default for f32 products (the pose transforms are
+    3x3 einsums; TF32 may be used on tensor-core GPUs)."""
     H, W = problem.ref_image.shape
     dtype = problem.ref_image.dtype
     dmin, dmax = problem.depth_min, problem.depth_max

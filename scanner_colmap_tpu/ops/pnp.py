@@ -2,9 +2,9 @@
 
 Rebuilds the capability of COLMAP's ``RegisterNextImage`` absolute-pose
 RANSAC (P3P + refinement) used by the reference's mapping kernel
-(/root/reference/integration/op_cpp/incremental_mapping.cc:329). TPU-first:
-a static batch of S minimal samples is solved by one vmapped eigen-solve of
-12x12 normal matrices (6-point DLT), all hypotheses are scored against all
+(integration/op_cpp/incremental_mapping.cc:329), batched: a static batch of
+S minimal samples is solved by one vmapped eigen-solve of 12x12 normal
+matrices (6-point DLT), all hypotheses are scored against all
 correspondences in one einsum, and the winner is polished with a fixed-trip
 Gauss-Newton pose refinement (pose-only bundle adjustment).
 """
@@ -18,7 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from scanner_colmap_tpu.models import geometry as geom
-from scanner_colmap_tpu.utils.jit_cache import persistent_jit
+from scanner_colmap_tpu.ops.linalg3 import f32_matmuls
 
 NEG_LOGIT = -1e9
 
@@ -142,6 +142,7 @@ def refine_pose(qvec, tvec, x3d, xn, weights, num_iters: int = 10,
 # ---------------------------------------------------------------------------
 
 @functools.partial(jax.jit, static_argnames=("num_trials", "sample_size", "refine_iters"))
+@f32_matmuls
 def pnp_ransac(
     key,
     x3d: jax.Array,   # (N, 3)
@@ -154,7 +155,10 @@ def pnp_ransac(
     sample_size: int = 6,
     refine_iters: int = 10,
 ) -> PnPResult:
-    """Absolute-pose RANSAC with DLT minimal solves + GN polish."""
+    """Absolute-pose RANSAC with DLT minimal solves + GN polish.
+
+    Precision: float32 matmuls at the highest precision (f32_matmuls); the
+    packed variants inherit it."""
     n = x3d.shape[0]
     thr2 = max_error_n * max_error_n
     logits = jnp.where(valid, 0.0, NEG_LOGIT)
@@ -217,7 +221,8 @@ def pnp_ransac_packed(key, x3d, xn, valid, max_error_n,
         res.inlier_mask.astype(dt)])
 
 
-@persistent_jit(static_argnames=("num_trials", "sample_size", "refine_iters"))
+@functools.partial(jax.jit, static_argnames=("num_trials", "sample_size",
+                                             "refine_iters"))
 def pnp_ransac_packed_cols(key, data, max_error_n,
                            min_num_inliers=30, min_inlier_ratio: float = 0.25,
                            num_trials: int = 256, sample_size: int = 6,

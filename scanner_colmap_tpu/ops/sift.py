@@ -1,4 +1,4 @@
-"""SIFT feature extraction, TPU-native.
+"""SIFT feature extraction as batched array programs.
 
 Rebuilds the capability of COLMAP's ``ExtractSiftFeaturesCPU`` (VLFeat
 covariant DoG detector + descriptor) as called by the reference's extraction
@@ -216,13 +216,12 @@ def bilinear_sample(img: jax.Array, xy: jax.Array) -> jax.Array:
 # ---------------------------------------------------------------------------
 # Per-keypoint patches
 #
-# TPU-first reformulation of the per-keypoint windowed sampling: scattered
-# bilinear gathers (the natural CUDA formulation, and the TPU's weakest op —
-# measured 17-60 ms per (1024, 256+) sample set on v5e) become ONE contiguous
-# dynamic-slice block per keypoint (~1 ms for 1024 64x64 blocks). All
+# Reformulation of the per-keypoint windowed sampling: scattered bilinear
+# gathers (the natural CUDA formulation, and slow on the previous
+# accelerator) become ONE contiguous dynamic-slice block per keypoint. All
 # fractional/rotated sampling then happens INSIDE the patch: orientation as a
 # dense elementwise pass over every patch pixel, descriptors as interpolation
-# matmuls on the MXU.
+# matmuls. Whether the gather form is faster on the GPU is not measured yet.
 # ---------------------------------------------------------------------------
 
 _NUM_ORI_BINS = 36
@@ -353,7 +352,7 @@ def compute_descriptors_patch(pgx, pgy, rel, sigma_oct, theta):
     pgx, pgy: (K, P, P); rel: (K, 2) keypoint (y, x) in patch coords;
     sigma_oct, theta: (K,). The rotated fractional sample grid is evaluated
     as separable interpolation MATMULS against the patch (one-hot bilinear
-    weight matrices on the MXU) instead of scattered gathers.
+    weight matrices) instead of scattered gathers.
     """
     n = _DESC_GRID
     K, P, _ = pgx.shape

@@ -1,17 +1,17 @@
-"""Two-view geometry: batched minimal solvers + TPU RANSAC + config decision.
+"""Two-view geometry: batched minimal solvers + batched RANSAC + config decision.
 
 Rebuilds COLMAP's ``TwoViewGeometry::Estimate`` as used by the reference's
-matching kernel (/root/reference/integration/op_cpp/sequential_matching.cc:
-84-101): RANSAC over F/E/H models, inlier classification, configuration enum,
-and relative-pose (qvec/tvec, tri_angle) recovery — the fields the reference
+matching kernel (integration/op_cpp/sequential_matching.cc:84-101): RANSAC
+over F/E/H models, inlier classification, configuration enum, and
+relative-pose (qvec/tvec, tri_angle) recovery — the fields the reference
 serializes per pair (io.cc:237-246).
 
-TPU-first design: instead of the sequential hypothesize-and-verify loop with
+Batched design: instead of the sequential hypothesize-and-verify loop with
 early exit, we draw a STATIC batch of S minimal samples, solve all hypotheses
 with one vmapped linear solve, score all N correspondences against all S
 hypotheses with one einsum, and pick the best — then refit on inliers
-(one LO step). Static shapes, no data-dependent control flow, everything on
-the MXU/VPU. Unlike the reference (defect: dummy cameras,
+(one LO step). Static shapes, no data-dependent control flow, everything
+on the device. Unlike the reference (defect: dummy cameras,
 sequential_matching.cc:89), real intrinsics are used when available.
 """
 
@@ -25,7 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from scanner_colmap_tpu.models import geometry as geom
-from scanner_colmap_tpu.ops.linalg3 import inv33 as _inv33
+from scanner_colmap_tpu.ops.linalg3 import f32_matmuls, inv33 as _inv33
 
 # COLMAP TwoViewGeometry configuration enum (interchange-compatible)
 UNDEFINED = 0
@@ -80,8 +80,8 @@ def _normalize_points(pts: jax.Array, mask: jax.Array):
 
 def _smallest_eigvec(A: jax.Array):
     """Right null vector of A (..., m, n): eigenvector of A^T A with smallest
-    eigenvalue. Uses eigh — exact but expensive in large batches on TPU
-    (QR-iteration sweeps); RANSAC trial batches use _null_vec_fast."""
+    eigenvalue. Uses eigh — exact but expensive in large batches
+    (iterative sweeps); RANSAC trial batches use _null_vec_fast."""
     AtA = jnp.einsum("...ki,...kj->...ij", A, A)
     _, V = jnp.linalg.eigh(AtA)
     return V[..., :, 0]
@@ -90,12 +90,11 @@ def _smallest_eigvec(A: jax.Array):
 def _null_vec_fast(A: jax.Array, iters: int = 2):
     """Approximate right null vector of A (..., m, n), m < n, with NO linear
     solves: modified Gram-Schmidt over the m sample rows (static unrolled
-    loop of batched dot/axpy — pure VPU work), then the null direction as
-    the largest column of the residual projector I - Q^T Q. Batched small
-    LU/eigh factorizations serialize on the TPU's scalar unit and dominated
-    two-view verification (~400 ms per 128x1024-trial RANSAC; this form is
-    ~15x cheaper). Degenerate samples yield garbage hypotheses that MSAC
-    scores out; refits use exact eigh."""
+    loop of batched dot/axpy — pure elementwise work), then the null
+    direction as the largest column of the residual projector I - Q^T Q.
+    Batched small LU/eigh factorizations are iterative and dominated
+    two-view verification on the previous accelerator. Degenerate samples
+    yield garbage hypotheses that MSAC scores out; refits use exact eigh."""
     m, n = A.shape[-2], A.shape[-1]
     rows = []
     for i in range(m):
@@ -321,9 +320,9 @@ def ransac_adaptive(key, x1, x2, valid, solver, residual_fn,
     reference's kernel forwards to TwoViewGeometry::Estimate,
     sequential_matching.cc:56-60).
 
-    TPU-native form: trials run in fixed-size CHUNKS inside a
+    Batched form: trials run in fixed-size CHUNKS inside a
     lax.while_loop — each chunk is one fully batched hypothesize+score pass
-    (static shapes, MXU-friendly), and the loop stops once
+    (static shapes), and the loop stops once
     trials >= clamp(log(1-confidence)/log(1-inlier_ratio^k),
     min_num_trials, max_num_trials). Good pairs converge in one chunk;
     hard pairs run to max_num_trials like the static batch did.
@@ -577,8 +576,8 @@ def detect_watermark(x1, x2, inliers, size1, size2, max_error: float,
     TwoViewGeometry config enum 7, serialized by the reference's kernel —
     the config field at io.cc:237).
 
-    TPU form of the 1-point translation RANSAC: every (subsampled) inlier's
-    displacement is a hypothesis; one (C, N) residual pass scores them all.
+    Batched form of the 1-point translation RANSAC: every (subsampled)
+    inlier's displacement is a hypothesis; one (C, N) residual pass scores them all.
     size1/size2: (width, height) per image.
     """
     if key is None:
@@ -618,6 +617,7 @@ def detect_watermark(x1, x2, inliers, size1, size2, max_error: float,
     static_argnames=("num_trials", "calibrated", "min_num_trials",
                      "confidence", "watermark_detection"),
 )
+@f32_matmuls
 def estimate_two_view_geometry(
     key,
     x1, x2,            # (N, 2) pixel coords of matched keypoints
@@ -644,6 +644,8 @@ def estimate_two_view_geometry(
         inliers; pose then comes from the H DECOMPOSITION (not E)
       - WATERMARK if the H inliers are a border-concentrated 2D translation
       - DEGENERATE if too few inliers
+
+    Precision: float32 matmuls at the highest precision (f32_matmuls).
     """
     kF, kH, kE = jax.random.split(key, 3)
     n = x1.shape[0]
@@ -738,6 +740,7 @@ def estimate_two_view_geometry(
     static_argnames=("num_trials", "calibrated", "max_models",
                      "min_num_trials", "confidence", "watermark_detection"),
 )
+@f32_matmuls
 def estimate_two_view_geometry_multiple(
     key,
     x1, x2,            # (N, 2) pixel coords of matched keypoints
@@ -759,7 +762,7 @@ def estimate_two_view_geometry_multiple(
     colmap.proto:38): greedily estimate a geometry, remove its inliers,
     re-estimate on the remainder, up to ``max_models`` rounds.
 
-    TPU-native form: a lax.scan of the single-model estimator with a
+    Batched form: a lax.scan of the single-model estimator with a
     shrinking validity mask — fixed trip count, masked convergence. Returns
     a TwoViewGeometry pytree with a leading ``max_models`` axis; round r is
     meaningful where ``num_inliers[r] > 0``. If >= 2 rounds found support,

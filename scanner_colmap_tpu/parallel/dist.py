@@ -1,4 +1,4 @@
-"""Multi-host execution over DCN: process-group init + host-level work
+"""Multi-process execution: process-group init + host-level work
 partitioning for the cluster-parallel mapping stage.
 
 Replaces the Scanner master/worker pool (gRPC, external — SURVEY §2.2
@@ -11,7 +11,7 @@ cross-host traffic.
 
 Single-process fallback: with no coordinator configured this degrades to
 one host owning all clusters, so the same code path serves laptop runs,
-one TPU VM, and an N-host pod slice.
+one multi-GPU host (one process per card), and a cluster of hosts.
 """
 
 from __future__ import annotations
@@ -28,11 +28,19 @@ T = TypeVar("T")
 
 def maybe_init_distributed(coordinator: Optional[str] = None,
                            num_processes: Optional[int] = None,
-                           process_id: Optional[int] = None) -> bool:
+                           process_id: Optional[int] = None,
+                           local_device_ids: Optional[Sequence[int]] = None
+                           ) -> bool:
     """Initialize jax.distributed when a coordinator is configured.
 
     Reads JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID when
     args are None. Returns True if multi-process mode is active.
+
+    local_device_ids are the cards of this host that this process owns.
+    With several processes on one multi-GPU host, give each its own card
+    (e.g. [process_id]): left unset, every process sees every card and
+    computes on the first one. A launcher outside Python can pin each
+    process with CUDA_VISIBLE_DEVICES instead.
     """
     import jax
 
@@ -42,9 +50,10 @@ def maybe_init_distributed(coordinator: Optional[str] = None,
     num_processes = num_processes or int(os.environ.get("JAX_NUM_PROCESSES", "1"))
     process_id = process_id if process_id is not None else int(
         os.environ.get("JAX_PROCESS_ID", "0"))
-    jax.distributed.initialize(coordinator, num_processes, process_id)
-    log.info("jax.distributed: process %d/%d via %s",
-             process_id, num_processes, coordinator)
+    jax.distributed.initialize(coordinator, num_processes, process_id,
+                               local_device_ids=local_device_ids)
+    log.info("jax.distributed: process %d/%d via %s, local devices %s",
+             process_id, num_processes, coordinator, local_device_ids)
     return True
 
 
@@ -54,7 +63,7 @@ def process_info():
 
     try:
         return jax.process_index(), jax.process_count()
-    except Exception:
+    except RuntimeError:   # no backend could initialize
         return 0, 1
 
 
@@ -75,9 +84,9 @@ def barrier_via_store(store, name: str, timeout_s: float = 3600.0,
     """Cross-host rendezvous through the artifact store: every host writes a
     ready marker table row; all hosts wait until every marker exists.
 
-    DCN-free environments (shared filesystem only) still synchronize
-    correctly; with jax.distributed active the same rendezvous works on any
-    shared store path.
+    Environments without jax.distributed (shared filesystem only) still
+    synchronize correctly; with jax.distributed active the same rendezvous
+    works on any shared store path.
     """
     import numpy as np
 

@@ -1,19 +1,19 @@
 """Distributed Schur-complement bundle adjustment over a device mesh.
 
-The north-star kernel (BASELINE.json): LANDMARKS (points + their
+The north-star kernel: LANDMARKS (points + their
 observations) shard across devices; CAMERA parameters are small and
 replicated. Each LM iteration:
 
   1. every shard evaluates residuals/Jacobians for ITS points (dense
-     batched VPU/MXU work — ops/ba.py)
-  2. the reduced camera system (U, g_c, S_pt, rhs_pt) psum-reduces over
-     ICI — a few MB regardless of point count
+     batched elementwise and matmul work — ops/ba.py)
+  2. the reduced camera system (U, g_c, S_pt, rhs_pt) psum-reduces across
+     the devices — a few MB regardless of point count
   3. every shard solves the identical few-hundred-square dense system
      (replicated compute beats broadcasting the factorization)
   4. point back-substitution is embarrassingly local per shard
 
 This matches the reference's delegation of BA to Ceres/ParallelBA
-(incremental_mapping.cc:76-83) in capability, scaled across chips instead
+(incremental_mapping.cc:76-83) in capability, scaled across devices instead
 of CPU threads.
 """
 

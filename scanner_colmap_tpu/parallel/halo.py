@@ -4,7 +4,7 @@ The reference's neighborhood computation is Scanner stencils: row i reads
 rows [i, i+overlap) (feature_matching.py:43, incremental_mapping.py:61,
 patch_match.py:92). When the ordered axis is sharded across devices, a
 window near a shard's end needs the first `halo` rows of the NEXT shard —
-a ring ppermute over ICI (SURVEY §5 long-context entry).
+a ring ppermute between devices (SURVEY §5 long-context entry).
 """
 
 from __future__ import annotations

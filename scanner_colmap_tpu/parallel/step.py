@@ -1,14 +1,14 @@
-"""The fused multi-chip SfM step: sharded windowed matching + distributed BA.
+"""The fused multi-device SfM step: sharded windowed matching + distributed BA.
 
 This is the framework's "training step" analog — the recurring heavy
 iteration of a large-scale reconstruction: match new imagery against its
 neighborhood and re-solve the bundle. Sharding layout (SURVEY §2.2):
 
 - ordered-image axis shards over the `data` mesh axis (row/data parallelism);
-  the match window crosses shard boundaries via a ring halo ppermute over
-  ICI (stencil/sequence parallelism)
+  the match window crosses shard boundaries via a ring halo ppermute
+  between devices (stencil/sequence parallelism)
 - BA landmarks shard over the same axis; the reduced camera system
-  psum-reduces over ICI (the model-parallel analog for the map itself)
+  psum-reduces across devices (the model-parallel analog for the map)
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Command-line interface: one driver, eight subcommands + `all`.
 
 The reference exposes the pipeline as 8 separate argparse scripts
-(/root/reference/integration/*.py, README.md:35-69); here one CLI with a
+(integration/*.py, README.md:35-69); here one CLI with a
 subcommand per stage, the same stage knobs (`--overlap`, `--cluster_size`,
 `--cluster_overlap`, ...) plus a working end-to-end `all` command (the
 reference's unified scanner-colmap.py never ran — SURVEY §8.1).
@@ -46,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(
         prog="scanner_colmap_tpu",
-        description="TPU-native SfM/MVS pipeline (scanner-colmap capabilities)",
+        description="JAX SfM/MVS pipeline (scanner-colmap capabilities)",
         parents=[common])
 
     sub = p.add_subparsers(dest="stage", required=True)
@@ -200,7 +200,10 @@ def main(argv=None):
 
     # import stages lazily: jax init is slow and `--help` shouldn't pay it
     from scanner_colmap_tpu.pipeline import stages
+    from scanner_colmap_tpu.utils.compile_cache import enable_compile_cache
     from scanner_colmap_tpu.utils.store import ArtifactStore
+
+    enable_compile_cache()
 
     store = ArtifactStore(cfg.store_path)
     # persist the effective config next to the artifacts (provenance)

@@ -45,9 +45,8 @@ from scanner_colmap_tpu.ops import matching as matching_ops
 from scanner_colmap_tpu.ops import patch_match as pm_ops
 from scanner_colmap_tpu.ops import sift as sift_ops
 from scanner_colmap_tpu.ops import two_view as tv_ops
-from scanner_colmap_tpu.utils import colmap_io
+from scanner_colmap_tpu.utils import colmap_io, imgcodec
 from scanner_colmap_tpu.utils.config import PipelineConfig
-from scanner_colmap_tpu.utils.jit_cache import persistent_jit
 from scanner_colmap_tpu.utils.store import ArtifactStore
 
 log = logging.getLogger(__name__)
@@ -63,15 +62,14 @@ def _round_up(n, m):
 # ---------------------------------------------------------------------------
 
 import functools
-import inspect
 
 
 @functools.lru_cache(maxsize=8)
 def _extract_batch_fn(max_num_features, num_octaves, scales_per_octave,
                       init_sigma, peak_threshold, edge_threshold, upright):
     def run(imgs, vhws):
-        # canvases arrive as uint8 (4x less over the 52 MB/s link,
-        # round-5; the reference's own 8-bit grayscale working format) —
+        # canvases arrive as uint8 (4x fewer bytes to upload; the
+        # reference's own 8-bit grayscale working format) —
         # restore the [0, 1] float scale on device
         imgs = imgs.astype(jnp.float32) * (1.0 / 255.0)
         feats = jax.lax.map(
@@ -83,7 +81,7 @@ def _extract_batch_fn(max_num_features, num_octaves, scales_per_octave,
                 upright=upright),
             (imgs, vhws))
         # pack to TWO output buffers: each separate device->host array costs
-        # a full transfer round trip on high-latency links. top_k orders
+        # its own transfer round trip. top_k orders
         # slots valid-first, so a per-image count lets the host download a
         # truncated [:, :kmax] slice instead of every padded slot.
         meta = jnp.concatenate([
@@ -91,13 +89,7 @@ def _extract_batch_fn(max_num_features, num_octaves, scales_per_octave,
             feats.valid[..., None].astype(feats.xy.dtype)], axis=-1)
         counts = jnp.sum(feats.valid, axis=-1).astype(jnp.int32)
         return counts, meta, sift_ops.descriptors_to_uint8(feats.desc)
-    return persistent_jit(
-        run, salt=(max_num_features, num_octaves, scales_per_octave,
-                   init_sigma, peak_threshold, edge_threshold, upright),
-        # the closure computes only through ops.sift: scope the source
-        # fingerprint there so unrelated stage edits don't invalidate the
-        # most expensive remote compile (SIFT: minutes)
-        fingerprint_modules=("scanner_colmap_tpu.ops.sift",))
+    return jax.jit(run)
 
 
 def _copy_to_host_async(x) -> None:
@@ -112,7 +104,7 @@ def _copy_to_host_async(x) -> None:
 
 def _chunked_map(f, xs, chunk: int):
     """vmap `f` over the leading axis in fixed-size chunks: a lax.map of a
-    vmapped body. Parallel (MXU-batched) within a chunk, sequential across
+    vmapped body. Parallel (batched) within a chunk, sequential across
     chunks — full parallelism without materializing every pair's
     intermediates (e.g. 1024x1024 distance matrices) at once."""
     NP = jax.tree.leaves(xs)[0].shape[0]
@@ -134,10 +126,7 @@ def _match_all_fn(max_ratio, max_distance, cross_check, precision="bf16"):
             # single packed output (-1 = no match): one download round trip
             return jnp.where(ok, idx, -1).astype(jnp.int32)
         return _chunked_map(per_pair, (ai, bi), 16)
-    return persistent_jit(
-        run, salt=(max_ratio, max_distance, cross_check, precision,
-                   inspect.getsource(_chunked_map)),
-        fingerprint_modules=("scanner_colmap_tpu.ops.matching",))
+    return jax.jit(run)
 
 
 def _pack_tvg(g, dtype=jnp.float32):
@@ -182,12 +171,7 @@ def _verify_all_fn(max_error, min_num_inliers, min_inlier_ratio, num_trials,
             return _pack_tvg(g)[None]  # (1, 37+P)
         return _chunked_map(per_pair, (keys, uv1, uv2, vm, K1, K2, sz1, sz2),
                             8)
-    return persistent_jit(
-        run, salt=(max_error, min_num_inliers, min_inlier_ratio, num_trials,
-                   max_models, min_num_trials, confidence,
-                   watermark_detection, inspect.getsource(_chunked_map),
-                   inspect.getsource(_pack_tvg)),
-        fingerprint_modules=("scanner_colmap_tpu.ops.two_view",))
+    return jax.jit(run)
 
 
 @functools.lru_cache(maxsize=2)
@@ -213,10 +197,7 @@ def _guided_all_fn(max_epipolar_error, max_distance, cross_check,
                 precision=precision)
             return jnp.where(ok, idx, -1).astype(jnp.int32)
         return _chunked_map(per_pair, (ar, br, uva, uvb, fs), 16)
-    return persistent_jit(
-        run, salt=(max_epipolar_error, max_distance, cross_check, precision,
-                   inspect.getsource(_chunked_map)),
-        fingerprint_modules=("scanner_colmap_tpu.ops.matching",))
+    return jax.jit(run)
 
 
 # ---------------------------------------------------------------------------
@@ -251,10 +232,7 @@ def prepare_images(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
         raise FileNotFoundError(f"no images under {cfg.image_path}")
     names, widths, heights = [], [], []
     for p in paths:
-        from PIL import Image as PILImage
-
-        with PILImage.open(p) as im:
-            w, h = im.size
+        w, h = image_ops.image_size(p)
         names.append(p.encode())
         widths.append(w)
         heights.append(h)
@@ -315,11 +293,11 @@ def run_extraction(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
     (multi-host sharding — parallel/dist.py merges the shard tables).
 
     Device work is batched: images decode on host, then a BATCH extracts in
-    ONE device dispatch (lax.map over the batch inside jit) — essential when
-    the accelerator sits behind a high-latency link, and the packetization
-    analog of the reference's work_packet_size (extraction.py:42-43).
+    ONE device dispatch (lax.map over the batch inside jit) — the
+    packetization analog of the reference's work_packet_size
+    (extraction.py:42-43).
 
-    Downloads are the bound on a thin link, so they are (a) truncated — slots
+    Downloads are (a) truncated — slots
     are valid-first (top_k by response), so only [:kmax] rows come down,
     kmax bucketed to 128 for a stable slice-program cache — and (b) started
     with copy_to_host_async in dispatch order, overlapping the next batch's
@@ -344,10 +322,10 @@ def run_extraction(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
     t0 = time.time()
     keypoints, descriptors, cam_rows, num_feats = [], [], [], []
     # PIPELINED with a BOUNDED in-flight window (parallel.inflight_batches):
-    # host JPEG decode of batch k+W, device compute of batches k..k+W-1, and
-    # the download of batch k overlap. Unbounded dispatch-ahead (the old
+    # host image decode of batch k+W, device compute of batches k..k+W-1,
+    # and the download of batch k overlap. Unbounded dispatch-ahead (the old
     # "dispatch everything, then drain" shape) queued hundreds of executions
-    # into the high-latency device transport at 1k-image scale and wedged;
+    # at 1k-image scale and wedged the previous accelerator's transport;
     # the window keeps the same overlap with O(W) queued work and O(W)
     # device-resident result buffers.
     K = s.max_num_features
@@ -681,10 +659,9 @@ def run_matching(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
         B = max((256 << 20) // (K_max * 128 * 4) - W, 8)
     n_bank = min(B + W, n_img)  # resident rows per bank (fixed jit signature)
 
-    # execution plan (round-5): device-RESIDENT pool when the u8 pool plus
-    # its normalized bf16 copy fit the budget — descriptors upload once
-    # over the ~52 MB/s link instead of once per bank (at 10k images the
-    # f32 bank re-upload alone was ~11 GB = most of the 194 s stage);
+    # execution plan: device-RESIDENT pool when the u8 pool plus its
+    # normalized bf16 copy fit the budget — descriptors upload once instead
+    # of once per bank (at 10k images the f32 bank re-upload is ~11 GB);
     # "banked" streams as before. Same matching table either way.
     # The resident pool is normalized to bf16, which is exactly the
     # default precision's matmul operand; an explicit precision="f32"
@@ -715,11 +692,10 @@ def run_matching(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
         """One-time chunked u8 upload + on-device normalize to bf16.
 
         The pool's image axis is BUCKETED (rounded up to 256) so the
-        matcher's jit signature — and its disk-cached AOT executable —
-        is shared across nearby collection sizes instead of recompiling
-        per exact N (round-5 bench: ~3-7 s per fresh signature on the
-        remote compiler). Pad rows are zero and unreachable (ai/bi index
-        only real rows)."""
+        matcher's jit signature — and its persistent-cache entry — is
+        shared across nearby collection sizes instead of recompiling per
+        exact N. Pad rows are zero and unreachable (ai/bi index only real
+        rows)."""
         n_pool = _round_up(max(n_img, 1), 256)
         Vb = np.zeros((n_pool, K_max), bool)
         blocks = []
@@ -1300,8 +1276,7 @@ def _undistort_batch_fn():
                                                   new_params)
         # ONE uint8 download instead of a float map per image
         return jnp.clip(out * 255.0, 0.0, 255.0).astype(jnp.uint8)
-    return persistent_jit(
-        run, fingerprint_modules=("scanner_colmap_tpu.ops.undistort",))
+    return jax.jit(run)
 
 
 def run_undistort(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
@@ -1315,8 +1290,6 @@ def run_undistort(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
     §8.3). Capability rebuilt: batched inverse-map remap on device
     (ops/undistort.py), COLMAP-binary export of the pinhole model.
     """
-    from PIL import Image as PILImage
-
     from scanner_colmap_tpu.ops import undistort as ud_ops
 
     store = store or ArtifactStore(cfg.store_path)
@@ -1358,7 +1331,7 @@ def run_undistort(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
         for k in range(n):
             iid, h, w = meta_rows[k]
             p = os.path.join(img_dir, f"image_{iid:06d}.png")
-            PILImage.fromarray(out[k][:h, :w]).save(p)
+            imgcodec.write_png(p, out[k][:h, :w])
             out_paths.append(p.encode())
             out_ids.append(iid)
             out_params.append(nprm[k])
@@ -1851,11 +1824,9 @@ def run_patch_match(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
         pending = []  # (ref, packed device array)
 
         def drain(ref, packed_dev):
-            try:
-                packed = np.asarray(packed_dev).astype(np.float32)
-            except Exception as e:  # per-image tolerance, patch_match.cc:108-114
-                log.warning("patch_match failed for image %d: %s", ref, e)
-                return
+            # a failure here is the device's (out of memory, a lost
+            # device), never the image's: it propagates
+            packed = np.asarray(packed_dev).astype(np.float32)
             d_out[ref] = packed[..., 0]
             # normals are unit with n_z < 0 by construction: reconstruct z
             nx, ny = packed[..., 1], packed[..., 2]
@@ -1881,11 +1852,11 @@ def run_patch_match(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
                 # coarse-to-fine warm start (upsampled half-res field)
                 kwargs = dict(init_depth=jnp.asarray(init_banks[0][ref]),
                               init_normal=jnp.asarray(init_banks[1][ref]))
-            problem = build_problem(ref, ds)
             # per-ref key by fold_in, NOT sequential splits: depth maps stay
             # bitwise identical regardless of host sharding / ref subsets
             k = jax.random.fold_in(jax.random.fold_in(key, pass_idx), ref)
             try:
+                problem = build_problem(ref, ds)
                 depth, normal, cost = pm_ops.patch_match_tiled(
                     k, problem, tile_rows=tile, halo_rows=pm.tile_halo,
                     num_iterations=iters or pm.num_iterations,
@@ -1894,14 +1865,17 @@ def run_patch_match(cfg: PipelineConfig, store: Optional[ArtifactStore] = None,
                     sigma_color=pm.sigma_color,
                     sampling=pm.sampling, **kwargs)
                 # ONE packed f16 download per image instead of three f32
-                # maps (downloads dominate this stage on slow links; f16
-                # depth keeps ~5e-4 relative precision vs fusion's 1e-2
-                # consistency gate, and unit normals with n_z < 0 need
-                # only two components)
+                # maps (8 bytes per pixel instead of 20; f16 depth keeps
+                # ~5e-4 relative precision vs fusion's 1e-2 consistency
+                # gate, and unit normals with n_z < 0 need only two
+                # components)
                 packed_dev = jnp.concatenate(
                     [depth[..., None], normal[..., :2], cost[..., None]],
                     axis=-1).astype(jnp.float16)
-            except Exception as e:
+            except (ValueError, ArithmeticError) as e:
+                # per-image tolerance for data faults (patch_match.cc:108-114);
+                # device errors (jax.errors.JaxRuntimeError: out of memory,
+                # compile failures) are RuntimeErrors and propagate
                 log.warning("patch_match failed for image %d: %s", ref, e)
                 continue
             pending.append((ref, packed_dev))
@@ -1999,7 +1973,7 @@ def _load_fusion_input(cfg: PipelineConfig, store: ArtifactStore):
         valid[n, :h, :w] = c < thr
         Rm = np.asarray(prep["R"][pidx]).reshape(3, 3)
         # host numpy: the jnp version dispatches an EAGER device program per
-        # image (~60 ms of link latency each — it dominated fusion)
+        # image, one round trip each
         qvecs[n] = geom.np_rotmat_to_quat(Rm)
         tvecs[n] = prep["T"][pidx]
         Ks[n] = np.asarray(prep["K"][pidx]).reshape(3, 3)
@@ -2120,31 +2094,39 @@ def run_all(cfg: PipelineConfig, export_path: Optional[str] = None,
     """End-to-end pipeline. With resume=True, stages whose output table
     already exists are skipped — crash recovery is rerun-from-last-table,
     like the reference's materialized-table model but without force=True
-    clobbering everything (SURVEY §5 checkpoint/resume)."""
+    clobbering everything (SURVEY §5 checkpoint/resume).
+
+    The wall time of every stage that ran is written to the `stage_times`
+    table (columns stage, seconds), in run order."""
     store = ArtifactStore(cfg.store_path)
+    stage_names, stage_seconds = [], []
 
-    def need(table):
-        return not (resume and store.has_table(table))
+    def run(table, fn, *args, **kwargs):
+        if resume and store.has_table(table):
+            return None
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        stage_names.append(fn.__name__.removeprefix("run_").encode())
+        stage_seconds.append(time.time() - t0)
+        log.info("stage %s: %.2f s", stage_names[-1].decode(),
+                 stage_seconds[-1])
+        return out
 
-    if need("frames"):
-        prepare_images(cfg, store)
-    if need("extraction"):
-        run_extraction(cfg, store)
-    if need("matching"):
-        run_matching(cfg, store)
-    if need("mapping"):
-        run_mapping(cfg, store)
-    if need("models"):
-        model = run_merge(cfg, store, export_path=export_path)
-    else:
+    run("frames", prepare_images, cfg, store)
+    run("extraction", run_extraction, cfg, store)
+    run("matching", run_matching, cfg, store)
+    run("mapping", run_mapping, cfg, store)
+    model = run("models", run_merge, cfg, store, export_path=export_path)
+    if model is None:
         model = load_model(store)
     if dense:
-        if need("prepare_patch_match"):
-            run_prepare_patch_match(cfg, store)
-        if need("patch_match"):
-            run_patch_match(cfg, store)
-        if need("fused"):
-            run_fusion(cfg, store, ply_path=ply_path)
-        if mesh and need("mesh"):
-            run_meshing(cfg, store, mesh_path=mesh_path)
+        run("prepare_patch_match", run_prepare_patch_match, cfg, store)
+        run("patch_match", run_patch_match, cfg, store)
+        run("fused", run_fusion, cfg, store, ply_path=ply_path)
+        if mesh:
+            run("mesh", run_meshing, cfg, store, mesh_path=mesh_path)
+    store.write_table("stage_times", {
+        "stage": stage_names,
+        "seconds": np.asarray(stage_seconds, np.float64)},
+        meta={"stage": "all"})
     return model

@@ -15,6 +15,7 @@ import os
 import numpy as np
 
 from scanner_colmap_tpu.models import geometry as geom
+from scanner_colmap_tpu.utils import imgcodec
 
 
 def generate_dataset(out_dir: str, num_images: int = 12, width: int = 320,
@@ -128,13 +129,12 @@ def generate_dataset(out_dir: str, num_images: int = 12, width: int = 320,
 
 def _render_blob_frames(out_dir, pts, sizes, amps, signs, qs, ts,
                         width, height, focal):
-    """Splat the blob field into JPEG frames for the given camera poses.
+    """Splat the blob field into gray PNG frames for the given poses.
 
-    JPEG with EXIF focal metadata, like real photos: exercises the
-    extraction stage's EXIF camera-prior path (reference
-    extraction_op.cc:49-55 reads EXIF focal length)."""
-    from PIL import Image as PILImage
-
+    Each PNG carries an eXIf chunk with the camera's focal tags, like real
+    photos: exercises the extraction stage's EXIF camera-prior path
+    (reference extraction_op.cc:49-55 reads EXIF focal length)."""
+    exif = _camera_exif(focal, width)
     yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
     cx, cy = width / 2.0, height / 2.0
     for i in range(len(qs)):
@@ -159,9 +159,8 @@ def _render_blob_frames(out_dir, pts, sizes, amps, signs, qs, ts,
                              + (yy[y0:y1, x0:x1] - v[b]) ** 2) / (2 * s * s))
             img[y0:y1, x0:x1] += signs[b] * amps[b] * patch
         img = np.clip(img, 0, 1)
-        pil = PILImage.fromarray((img * 255).astype(np.uint8), "L").convert("RGB")
-        pil.save(os.path.join(out_dir, f"image_{i:04d}.jpg"),
-                 quality=95, exif=_camera_exif(focal, width))
+        imgcodec.write_png(os.path.join(out_dir, f"image_{i:04d}.png"),
+                           (img * 255).astype(np.uint8), exif=exif)
 
 
 def generate_loop_dataset(out_dir: str, num_images: int = 48,
@@ -241,20 +240,20 @@ def generate_loop_dataset(out_dir: str, num_images: int = 48,
     return gt
 
 
-def _camera_exif(focal: float, width: int):
+def _camera_exif(focal: float, width: int) -> bytes:
     """EXIF block a real camera would write: precise FocalLength (mm,
     rational) + FocalPlane resolution tags (virtual 36 mm sensor), plus the
     integer FocalLengthIn35mmFilm fallback (its ~2% rounding is real EXIF
-    behavior; the precise tags take priority in ops/image.exif_focal_px)."""
-    from PIL import Image as PILImage
-
-    exif = PILImage.Exif()
-    exif[0x920A] = round(focal * 36.0 / width, 4)   # FocalLength (mm)
-    exif[0xA20E] = round(width / 3.6, 4)            # FocalPlaneXResolution
-    exif[0xA210] = 3                                # unit: cm
-    exif[0xA002] = width                            # ExifImageWidth
-    exif[0xA405] = int(round(focal * 36.0 / width))  # FocalLengthIn35mmFilm
-    return exif
+    behavior; the precise tags take priority in ops/image.exif_focal_px).
+    TIFF-structured bytes: a PNG eXIf chunk as is, a JPEG APP1 segment
+    after the "Exif" marker."""
+    return imgcodec.make_exif({
+        imgcodec.TAG_FOCAL_LENGTH: round(focal * 36.0 / width, 4),
+        imgcodec.TAG_FOCAL_PLANE_X_RES: round(width / 3.6, 4),
+        imgcodec.TAG_FOCAL_PLANE_RES_UNIT: 3,            # cm
+        imgcodec.TAG_EXIF_IMAGE_WIDTH: width,
+        imgcodec.TAG_FOCAL_35MM: int(round(focal * 36.0 / width)),
+    })
 
 
 DEFAULT_TEXTURE = os.path.join(os.path.dirname(os.path.dirname(
@@ -445,7 +444,8 @@ def generate_real_texture_dataset(out_dir: str, num_images: int = 10,
         img = np.clip(img, 0, 255).astype(np.uint8)
         pil = PILImage.fromarray(img, "RGB")
         pil.save(os.path.join(out_dir, f"image_{i:04d}.jpg"),
-                 quality=jpeg_quality, exif=_camera_exif(focal, width))
+                 quality=jpeg_quality,
+                 exif=b"Exif\x00\x00" + _camera_exif(focal, width))
 
     gt = {
         "focal": focal, "width": width, "height": height,

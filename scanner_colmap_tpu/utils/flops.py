@@ -1,12 +1,11 @@
 """Analytic FLOP / gather-tap accounting for utilization reporting.
 
-BASELINE.json's north star is "speed-of-light per chip": wall-clock
-throughput alone cannot show how close a stage runs to the hardware's
-ceiling. This module provides closed-form work estimates for the three
-device-dominated stages — descriptor matching (MXU matmuls), bundle
-adjustment (MXU einsums), and PatchMatch (VPU + gather taps) — so bench.py
-can emit an MFU-style achieved/peak fraction next to every throughput
-number. Estimates count the dominant terms of the actual programs in
+Wall-clock throughput alone cannot show how close a stage runs to the
+hardware's ceiling. This module provides closed-form work estimates for the
+three device-dominated stages — descriptor matching (matmuls), bundle
+adjustment (einsums), and PatchMatch (elementwise work + gather taps) — so
+the benchmarks can put an achieved/peak fraction next to a throughput.
+Estimates count the dominant terms of the actual programs in
 ops/matching.py, ops/ba.py, ops/patch_match.py (documented per term) and
 are accurate to ~±20%, which is enough to distinguish "3% of peak" from
 "40% of peak".
@@ -14,27 +13,38 @@ are accurate to ~±20%, which is enough to distinguish "3% of peak" from
 
 from __future__ import annotations
 
-# Dense-matmul peak per chip, bf16, TFLOP/s (public TPU spec sheets). The
-# matching/BA programs currently run f32, whose MXU peak is lower (roughly
-# half bf16 on v4/v5); we report the fraction of BF16 peak so numbers are
-# comparable across rounds and the f32->bf16 headroom stays visible.
-PEAK_BF16_TFLOPS = {
-    "TPU v4": 275.0,
-    "TPU v5 lite": 197.0,
-    "TPU v5e": 197.0,
-    "TPU v5p": 459.0,
-    "TPU v6 lite": 918.0,
-    "TPU v6e": 918.0,
+# Published peaks of one card, keyed by jax Device.device_kind: dense rates
+# (no sparsity) at the card's full power limit (700 W for the H100 SXM).
+# Source: NVIDIA H100 Tensor Core GPU data sheet, SXM column. A card set
+# below its full power limit cannot hold these clocks under load, so a
+# fraction of peak is reported with the card's power limit beside it.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16_tflops": 989.0,   # tensor cores, bf16/fp16 inputs
+        "tf32_tflops": 495.0,   # tensor cores, TF32
+        "fp32_tflops": 67.0,    # CUDA cores, float32
+        "hbm_tbps": 3.35,       # HBM3 bandwidth, TB/s
+    },
 }
 
 
+def device_peaks(device) -> dict | None:
+    """Peak rates of a jax device: None for the CPU, which has no entry by
+    design; an accelerator missing from PEAKS raises, since a rate divided
+    by an assumed peak is a made-up number."""
+    if device.platform == "cpu":
+        return None
+    try:
+        return PEAKS[device.device_kind]
+    except KeyError:
+        raise KeyError(f"no published peaks for device kind "
+                       f"{device.device_kind!r}; add them to PEAKS") from None
+
+
 def device_peak_tflops(device) -> float | None:
-    """bf16 peak for a jax device, or None when unknown (e.g. CPU)."""
-    kind = str(getattr(device, "device_kind", "")).lower()
-    for k, v in PEAK_BF16_TFLOPS.items():
-        if k.lower() in kind:
-            return v
-    return None
+    """bf16 dense-matmul peak (TFLOP/s) of a jax device; None for the CPU."""
+    peaks = device_peaks(device)
+    return None if peaks is None else peaks["bf16_tflops"]
 
 
 def matching_flops(num_pairs: int, k_max: int, dim: int = 128) -> float:
@@ -79,7 +89,7 @@ def ba_cg_flops_per_iter(M: int, P: int, T: int, cg_iters: int) -> float:
 
     Unlike the dense path there is NO M-scaled per-cell term and no MC^2
     accumulation — the work is segment-sum/gather dominated, so the bound
-    is HBM bandwidth, not the MXU peak (see bench roofline note)."""
+    is HBM bandwidth, not the matmul peak."""
     cells = float(P) * T
     build = cells * (250.0 + 40.0 + 96.0 + 320.0 + 32.0 + 48.0 + 200.0
                      + 240.0) + P * 90.0
@@ -114,6 +124,6 @@ def patch_match_taps(H: int, W: int, S: int, window_radius: int,
     sampling): one packed [value, gx, gy] gather per source view per window
     offset per candidate per pixel; 10 candidates per iteration (8 Jacobi
     propagations + perturbation + random) plus the initial cost pass.
-    Gather taps — not FLOPs — are the stage's budget on TPU."""
+    The stage is bound by these gathers, not by its FLOPs."""
     n_off = (2 * window_radius // window_step + 1) ** 2
     return float(H) * W * S * n_off * (1.0 + n_candidates * num_iterations)

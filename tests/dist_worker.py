@@ -1,7 +1,7 @@
 """Worker entrypoint for the REAL multi-process distributed test.
 
 Each OS process runs this script with its own process_id; they rendezvous
-through jax.distributed's coordination service (DCN analog) and the shared
+through jax.distributed's coordination service  and the shared
 artifact store, then execute the distributed extraction + matching stages
 end-to-end (parallel/dist.py). Launched by
 tests/test_dist_multiprocess.py — not a test module itself.

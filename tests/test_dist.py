@@ -176,3 +176,21 @@ def test_patch_match_shards_match_full(tmp_path, rng):
             ids_sh.append(int(i))
             assert np.array_equal(np.asarray(t["depth_map"][k]), by_id[int(i)])
     assert sorted(ids_sh) == sorted(by_id.keys())
+
+
+def test_maybe_init_distributed_passes_local_device_ids(monkeypatch):
+    """Each process of a one-host multi-GPU run owns its own card."""
+    import jax
+
+    seen = {}
+
+    def fake_initialize(coordinator, num_processes, process_id, **kw):
+        seen.update(coordinator=coordinator, num_processes=num_processes,
+                    process_id=process_id, **kw)
+
+    monkeypatch.setattr(jax.distributed, "initialize", fake_initialize)
+    ok = dist.maybe_init_distributed("localhost:1234", 4, 2,
+                                     local_device_ids=[2])
+    assert ok
+    assert seen == {"coordinator": "localhost:1234", "num_processes": 4,
+                    "process_id": 2, "local_device_ids": [2]}

@@ -1,8 +1,8 @@
-"""Sanity checks for the analytic work estimates behind the bench's
-utilization report (utils/flops.py — the BASELINE 'speed-of-light per chip'
-accounting)."""
+"""Sanity checks for the analytic work estimates and the peak table behind
+the bench's utilization report (utils/flops.py)."""
 
 import numpy as np
+import pytest
 
 from scanner_colmap_tpu.utils import flops
 
@@ -35,11 +35,18 @@ def test_patch_match_taps_formula():
     assert flops.patch_match_taps(100, 200, 4, 5, 7, window_step=2) < t
 
 
-def test_device_peak_lookup():
+@pytest.mark.parametrize("platform, kind, expect", [
+    ("gpu", "NVIDIA H100 80GB HBM3", 989.0),
+    ("gpu", "NVIDIA Unknown Card", KeyError),
+    ("cpu", "cpu", None),
+])
+def test_device_peak_lookup(platform, kind, expect):
     class Dev:
-        device_kind = "TPU v5 lite"
-    assert flops.device_peak_tflops(Dev()) == 197.0
-
-    class CPU:
-        device_kind = "cpu"
-    assert flops.device_peak_tflops(CPU()) is None
+        pass
+    dev = Dev()
+    dev.platform, dev.device_kind = platform, kind
+    if expect is KeyError:
+        with pytest.raises(KeyError, match="no published peaks"):
+            flops.device_peak_tflops(dev)
+    else:
+        assert flops.device_peak_tflops(dev) == expect

@@ -120,3 +120,11 @@ def test_distributed_ba_shared_camera_tie(rng, mesh):
     assert f.max() - f.min() == 0.0
     assert np.isclose(float(info1["final_cost"]), float(info8["final_cost"]),
                       rtol=1e-6)
+
+
+def test_dryrun_multichip_refuses_missing_devices():
+    """A multi-device check never runs on fewer devices than it names."""
+    from __graft_entry__ import dryrun_multichip
+
+    with pytest.raises(RuntimeError, match="needs 64 devices"):
+        dryrun_multichip(64)

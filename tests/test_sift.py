@@ -108,7 +108,7 @@ def test_descriptors_to_uint8_roundtrip():
 
 
 def test_extract_patches_matches_direct_slicing():
-    """Patch block extraction (the TPU-first gather) equals direct numpy
+    """Patch block extraction (the contiguous-block gather) equals direct numpy
     slicing, including corner clamping at image borders."""
     rng = np.random.default_rng(0)
     maps = rng.normal(size=(3, 64, 80)).astype(np.float32)

@@ -20,7 +20,7 @@ def gif_video(tmp_path):
     frames_dir = tmp_path / "frames"
     synth.generate_dataset(str(frames_dir), num_images=8, width=120,
                            height=90, seed=0)
-    imgs = [Image.open(frames_dir / f"image_{i:04d}.jpg").convert("P")
+    imgs = [Image.open(frames_dir / f"image_{i:04d}.png").convert("P")
             for i in range(8)]
     path = tmp_path / "video.gif"
     imgs[0].save(path, save_all=True, append_images=imgs[1:], duration=100)

@@ -6,7 +6,7 @@ trajectories (the closure-relevant case), each run e2e twice — closure
 off vs the default auto (which must self-enable) — reporting ATE
 absolute / % of span, registration, and the per-config median + spread.
 
-    PYTHONPATH=/root/repo python tools/exp_ate_band.py
+    python tools/exp_ate_band.py
 Env: BAND_N (default 1000), BAND_SEEDS (default "11,12,13"),
 BAND_OUT (JSON path, default stdout only).
 """
@@ -19,8 +19,11 @@ import sys
 import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from scanner_colmap_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 logging.basicConfig(level=logging.INFO, stream=sys.stderr)
 
 import numpy as np

@@ -8,7 +8,7 @@ harness runs the hardened real-texture scene at BOTH operating points on
 the real chip and reports throughput, registration, ATE, reprojection,
 and focal recovery side by side.
 
-    PYTHONPATH=/root/repo python tools/exp_capacity.py
+    python tools/exp_capacity.py
 Env: CAP_IMAGES (default 10), CAP_OUT (JSON path).
 """
 
@@ -19,8 +19,11 @@ import sys
 import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from scanner_colmap_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 logging.basicConfig(level=logging.INFO, stream=sys.stderr)
 
 import numpy as np

@@ -7,7 +7,7 @@ same store: loop_closure=False vs the default "auto" (the BoW prepass
 must flip it on). Reports ATE (absolute + % of span), stage timings, the
 revisit fraction, and the matching-cost overhead of the candidate pass.
 
-    python tools/exp_loop_1k.py          # TPU, ~20 min
+    python tools/exp_loop_1k.py
     LOOP_N=400 ...                       # smaller sweep
 """
 
@@ -18,8 +18,11 @@ import sys
 import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from scanner_colmap_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 logging.basicConfig(level=logging.INFO, stream=sys.stderr)
 
 import numpy as np

@@ -13,12 +13,15 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from scanner_colmap_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 logging.basicConfig(level=logging.INFO, stream=sys.stderr)
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache")
     wd = os.environ["EXP_STORE"]
     from scanner_colmap_tpu.engine import cluster as cluster_mod
     from scanner_colmap_tpu.pipeline import stages

@@ -6,7 +6,7 @@ images, suspected cause the static greedy registration schedule. This
 measures both device schedules against the host path. Extraction/matching
 run once per (n, seed); mapping+merge re-run per mode.
 
-    PYTHONPATH=/root/repo python tools/exp_mapper_ate.py   # TPU
+    python tools/exp_mapper_ate.py
 """
 
 import json
@@ -16,8 +16,11 @@ import sys
 import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from scanner_colmap_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
 
 import numpy as np

@@ -12,7 +12,7 @@ through the raw device program and reports WHERE it was lost:
   - "host_registers": whether the host mapper registers the same image
     from the same subgraph (isolates device numerics vs data).
 
-    python tools/exp_mapper_dropped.py          # TPU
+    python tools/exp_mapper_dropped.py
     ATE_N=48 ATE_SEED=1 ...                     # config overrides
 """
 
@@ -22,8 +22,11 @@ import os
 import sys
 import tempfile
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from scanner_colmap_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
 
 import numpy as np

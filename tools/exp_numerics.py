@@ -1,17 +1,16 @@
-"""TPU-numerics parity probe (VERDICT r4 #9).
+"""Accelerator-numerics parity probe.
 
-The test suite pins JAX_PLATFORMS=cpu + x64, so bf16-on-TPU effects are
-only handled indirectly (the mapper's device_fallback_min_frac retry
-knob). This probe runs the 16-image synthetic pipeline ON THE REAL CHIP
-in three modes and records registration/ATE/reprojection deltas:
+The test suite pins JAX_PLATFORMS=cpu + x64, so the accelerator's own
+arithmetic (bf16 matching, the backend's f32 matmul precision) shows only
+on the card. This probe runs the 16-image synthetic pipeline on the
+default device in three modes and records registration/ATE/reprojection
+deltas:
 
   default      — bf16 matching matmuls, device mapper (the shipped path)
   f32_match    — matching.precision="f32" (exact-accumulation matcher)
   host_mapper  — device matcher default + host mapping loop
 
-turning the fallback band-aid into a measured, documented tolerance.
-
-    PYTHONPATH=/root/repo python tools/exp_tpu_numerics.py
+    python tools/exp_numerics.py
 Env: NUM_IMAGES (default 16), NUM_OUT (JSON path).
 """
 
@@ -22,8 +21,11 @@ import sys
 import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from scanner_colmap_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 logging.basicConfig(level=logging.INFO, stream=sys.stderr)
 
 

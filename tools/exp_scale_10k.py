@@ -2,7 +2,7 @@
 config 5 scale; VERDICT r3 #5: prove the O(bank) memory claim at 10k with
 measured wall clock and memory high-water, not extrapolation).
 
-    PYTHONPATH=/root/repo python tools/exp_scale_10k.py
+    python tools/exp_scale_10k.py
 Env: SCALE10K_IMAGES (default 10000), SCALE10K_SIZE (default 480).
 """
 
@@ -14,8 +14,11 @@ import sys
 import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from scanner_colmap_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 logging.basicConfig(level=logging.INFO, stream=sys.stderr)
 
 

@@ -1,13 +1,13 @@
 """Break BA calls down by call site + dissect one call's latency."""
 import os, sys, time, tempfile, collections, traceback
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 import numpy as np
 import jax
 from scanner_colmap_tpu.pipeline import stages, synth
+from scanner_colmap_tpu.utils.compile_cache import enable_compile_cache
 from scanner_colmap_tpu.utils.config import PipelineConfig
 from scanner_colmap_tpu.utils.store import ArtifactStore
 
+enable_compile_cache()
 num_images = 16
 workdir = tempfile.mkdtemp(prefix="sct_prof_")
 image_dir = os.path.join(workdir, "images")
